@@ -1,4 +1,4 @@
-/* peba1_native: C runtime helpers for the PEBA1-on-TPU framework.
+/* peba1_native: C runtime helpers for the peba1 package.
  *
  * Native equivalents of the runtime-side work the reference does in C++
  * around its crypto engine (bit-slicing at encrypt/decrypt call sites,
@@ -177,7 +177,7 @@ static PyMethodDef methods[] = {
 
 static struct PyModuleDef module = {
     PyModuleDef_HEAD_INIT, "peba1_native",
-    "Native runtime helpers for peba1_tpu", -1, methods,
+    "Native runtime helpers for peba1", -1, methods,
 };
 
 PyMODINIT_FUNC PyInit_peba1_native(void) { return PyModule_Create(&module); }

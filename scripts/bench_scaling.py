@@ -9,14 +9,13 @@ time flat).  Two modes:
                      encrypted-distance + threshold circuit -- the config-5
                      workload shape)
 
-On a real pod slice this exercises ICI/DCN; on this machine it can also run
-on the virtual CPU mesh (--platform cpu --virtual-devices 8) to validate the
-harness and the sharded programs, where times reflect host-core contention,
-not interconnect (documented caveat recorded in the JSON).
+On a four-card host this exercises the collectives between cards; it can
+also run on the virtual CPU mesh (--platform cpu --virtual-devices 8) to
+validate the harness and the sharded programs, where times reflect host-core
+contention, not interconnect (caveat recorded in the JSON).
 
-Timing discipline matches bench.py: per mesh size, `--reps` timed runs on
-FRESH inputs each (encryption keys differ per rep), min taken -- the jitter
-(relay fetch latency, host noise) is all positive.
+Per mesh size, `--reps` timed runs on fresh inputs, each ending in
+block_until_ready, min taken.
 
 Emits one JSON line with per-mesh-size timings and efficiencies.
 """
@@ -30,180 +29,10 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
-def mode_comm(args):
-    """Static collective-payload accounting + projected interconnect-limited
-    efficiency for the sharded forms (BASELINE config 5).
-
-    The virtual-CPU-mesh measurements (the other modes) reflect host-core
-    contention, not interconnect; this mode complements them with the other
-    bound: per-collective payload bytes are STATICALLY known from the shard_map
-    programs (peba1_tpu/parallel/shard.py), per-device compute time is taken
-    from the committed on-chip artifacts, and efficiency is projected as
-    t_compute / (t_compute + t_comm) with NO compute/comm overlap -- a
-    conservative lower bound (XLA can overlap collectives where the
-    dependence structure allows; the ringtp per-step gather is on the serial
-    path, so there it is tight).
-
-    Link-bandwidth assumptions are explicit knobs: --ici-gbps per-direction
-    per-chip ICI (default 45 GB/s ~ v5e; v5p ~ 90), --dcn-gbps cross-host
-    (default 25 GB/s).
-    """
-    import math
-
-    from peba1_tpu.params import PRESETS
-
-    p = PRESETS[args.params]
-    B = args.comm_batch                      # per-device bootstrap batch
-    nslots, bits = args.nslots, args.bitsize
-    ici = args.ici_gbps * 1e9
-    dcn = args.dcn_gbps * 1e9
-    ct_bytes = (p.n + 1) * 4                 # one LWE ciphertext
-    ks_cols = (p.n + 1) * 4                  # keyswitch table output columns
-    t_batch = args.batch_seconds             # on-chip seconds per B-batch
-    t_template = args.template_seconds       # on-chip seconds per 1:N template
-
-    def eff(t_comp, t_comm):
-        return t_comp / (t_comp + t_comm)
-
-    rows = []
-    for tp in (2, 4, 8):
-        # sharded_bootstrap: ONE all_gather per launch -- the tp-split
-        # keyswitch partials (shard.py sharded_bootstrap: part (B, C/tp),
-        # gathered tiled over tp).  Received bytes/device:
-        cpad = -(-ks_cols // tp) * tp
-        bytes_ks = B * cpad * 4 * (tp - 1) / tp
-        rows.append({
-            "form": "sharded_bootstrap", "axis": f"tp={tp}", "link": "ici",
-            "payload_bytes_per_device_per_launch": int(bytes_ks),
-            "t_compute_s": t_batch, "t_comm_s": round(bytes_ks / ici, 6),
-            "projected_efficiency": round(eff(t_batch, bytes_ks / ici), 4),
-        })
-    f_gemm = args.ringtp_gemm_frac
-    K = args.overlap_blocks
-    for tp in (2, 4, 8):
-        # sharded_bootstrap_ringtp: per-STEP all_gather of the delta slice
-        # (shard.py step(): cols (B, k+1, N/tp) -> (B, k+1, N)); n steps on
-        # the serial path (acc dependence).  Three models:
-        #   optimistic -- the whole per-batch time divides by tp (upper
-        #     bound; kept for continuity with SCALING_r03/r04 rows);
-        #   corrected  -- only the GEMM fraction f splits (rotate/decompose
-        #     replicate per rank): t = t_batch*(f/tp + (1-f));
-        #   corrected+overlap -- overlap_blocks=K chunked gathers hide all
-        #     but ~1/K of the gather bytes behind the next block's GEMM
-        #     (exposed = max(t_comm/K, t_comm - (K-1)/K * t_gemm_local)).
-        bytes_step = B * (p.k + 1) * p.N * 4 * (tp - 1) / tp
-        total = bytes_step * p.n
-        t_comm = total / ici
-        t_ideal = t_batch / tp
-        t_corr = t_batch * (f_gemm / tp + (1 - f_gemm))
-        t_gemm_local = t_batch * f_gemm / tp
-        t_comm_exposed = max(t_comm / K, t_comm - (K - 1) / K * t_gemm_local)
-        rows.append({
-            "form": "sharded_bootstrap_ringtp", "axis": f"tp={tp}",
-            "link": "ici",
-            "payload_bytes_per_device_per_batch": int(total),
-            "t_compute_s": round(t_ideal, 4),
-            "t_comm_s": round(t_comm, 4),
-            "projected_efficiency": round(eff(t_ideal, t_comm), 4),
-        })
-        rows.append({
-            "form": "sharded_bootstrap_ringtp_corrected", "axis": f"tp={tp}",
-            "link": "ici",
-            "gemm_fraction": f_gemm,
-            "t_compute_s": round(t_corr, 4),
-            "t_comm_s": round(t_comm, 4),
-            "projected_efficiency_vs_ideal": round(
-                t_ideal / (t_corr + t_comm), 4),
-        })
-        rows.append({
-            "form": "sharded_bootstrap_ringtp_overlap", "axis": f"tp={tp}",
-            "link": "ici",
-            "gemm_fraction": f_gemm, "overlap_blocks": K,
-            "t_compute_s": round(t_corr, 4),
-            "t_comm_exposed_s": round(t_comm_exposed, 4),
-            "projected_efficiency_vs_ideal": round(
-                t_ideal / (t_corr + t_comm_exposed), 4),
-        })
-    for hosts in (2, 4, 8):
-        # sharded_identify over dp across hosts (the config-5 1:N workload):
-        # ZERO mid-circuit collectives -- each host's shard runs the full
-        # Function_f locally.  Cross-host traffic per probe: the replicated
-        # probe + bound broadcast (DCN), once per authentication.
-        bytes_bcast = (nslots * bits + 3 * bits) * ct_bytes
-        t_comp = t_template  # per-template cadence; weak scaling per host
-        t_comm = bytes_bcast / dcn
-        rows.append({
-            "form": "sharded_identify", "axis": f"hosts={hosts} (dp)",
-            "link": "dcn",
-            "payload_bytes_per_probe": int(bytes_bcast),
-            "t_compute_s": t_comp, "t_comm_s": round(t_comm, 6),
-            "projected_efficiency": round(eff(t_comp, t_comm), 6),
-        })
-    # sharded_tree_sum / argmin finalist gathers: a few encrypted words.
-    bytes_tree = (3 * bits) * ct_bytes
-    rows.append({
-        "form": "sharded_tree_sum/argmin finalists", "axis": "tp or dp",
-        "link": "ici", "payload_bytes_per_reduce": int(bytes_tree),
-        "note": "KB-scale vs minutes of compute; negligible",
-    })
-
-    def row(form, axis):
-        # Keyed lookup: positional indexing into `rows` silently mis-
-        # attributes numbers when the loops above change (advisor r4).
-        for r in rows:
-            if r["form"] == form and r["axis"] == axis:
-                return r
-        raise KeyError((form, axis))
-
-    r_ident = row("sharded_identify", "hosts=2 (dp)")
-    r_ks = row("sharded_bootstrap", "tp=2")
-    r_ring = row("sharded_bootstrap_ringtp", "tp=2")
-    r_ring_c = row("sharded_bootstrap_ringtp_corrected", "tp=2")
-    r_ring_o = row("sharded_bootstrap_ringtp_overlap", "tp=2")
-    rec = {
-        "metric": "projected_interconnect_limited_efficiency",
-        "model": "t_comp/(t_comp+t_comm), no-overlap lower bound; "
-                 "ringtp additionally modeled with the corrected compute "
-                 "split and with chunked-gather overlap",
-        "params": args.params,
-        "per_device_batch": B,
-        "nslots": nslots, "bitsize": bits,
-        "assumed_ici_gbytes_per_s": args.ici_gbps,
-        "assumed_dcn_gbytes_per_s": args.dcn_gbps,
-        "batch_seconds_source": args.batch_seconds_source,
-        "template_seconds_source": args.template_seconds_source,
-        "ringtp_gemm_frac": args.ringtp_gemm_frac,
-        "ringtp_gemm_frac_source": args.ringtp_gemm_frac_source,
-        "rows": rows,
-        "config5_verdict": (
-            ">=80% at >=2 hosts HOLDS in projection for the config-5 1:N "
-            "workload (sharded_identify over dp: no mid-circuit collectives, "
-            "probe broadcast is microseconds vs ~minutes of compute/shard, "
-            f"projected {r_ident['projected_efficiency']:.4f}); the dp-only "
-            "raw-bootstrap form is likewise collective-free and the "
-            "tp-sharded keyswitch costs <1% at tp<=8 (projected "
-            f"{r_ks['projected_efficiency']:.4f} at tp=2).  The ring-TP "
-            "form is the exception: its per-step delta gather sits on the "
-            "serial accumulator path, projecting "
-            f"{r_ring['projected_efficiency']:.2f} at tp=2 optimistic, "
-            f"{r_ring_c['projected_efficiency_vs_ideal']:.2f} with the "
-            "corrected compute split (only the GEMM divides by tp), and "
-            f"{r_ring_o['projected_efficiency_vs_ideal']:.2f} with "
-            f"overlap_blocks={args.overlap_blocks} chunked gathers "
-            "(shard.sharded_bootstrap_ringtp overlap_blocks, bit-equal in "
-            "CI) -- scaling the ring dimension wants v5p-class ICI plus the "
-            "overlap; scaling batch or templates is free."),
-    }
-    print(json.dumps(rec))
-    if args.out:
-        from peba1_tpu.utils.artifacts import atomic_json
-        atomic_json(args.out, rec)
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--params", default="toy")
-    ap.add_argument("--mode", choices=["bootstrap", "identify", "comm"],
+    ap.add_argument("--mode", choices=["bootstrap", "identify"],
                     default="bootstrap")
     ap.add_argument("--per-device-batch", type=int, default=64,
                     help="gate bootstraps per device (bootstrap mode)")
@@ -219,33 +48,7 @@ def main(argv=None):
     ap.add_argument("--virtual-devices", type=int, default=0,
                     help="force N virtual CPU devices (sets XLA_FLAGS; must "
                          "be first JAX use in the process)")
-    # comm-mode knobs (static accounting; no devices touched)
-    ap.add_argument("--comm-batch", type=int, default=8192,
-                    help="per-device bootstrap batch for the comm model")
-    ap.add_argument("--ici-gbps", type=float, default=45.0,
-                    help="assumed per-direction ICI GB/s (v5e ~45, v5p ~90)")
-    ap.add_argument("--dcn-gbps", type=float, default=25.0)
-    ap.add_argument("--batch-seconds", type=float, default=0.5994,
-                    help="measured on-chip seconds per per-device batch")
-    ap.add_argument("--batch-seconds-source", default="BENCH_r04.json")
-    ap.add_argument("--template-seconds", type=float, default=15.9,
-                    help="measured on-chip seconds per 1:N template")
-    ap.add_argument("--template-seconds-source",
-                    default="SWEEP_r05.json (509s / 32 templates steady)")
-    ap.add_argument("--ringtp-gemm-frac", type=float, default=0.76,
-                    help="fraction of the per-batch time in the tp-split "
-                         "GEMM (rest replicates per rank)")
-    ap.add_argument("--ringtp-gemm-frac-source",
-                    default="VERDICT r4 roofline arithmetic: t2_gen runs at "
-                            "~76%% of v5e int8 MXU peak, so >=76%% of wall "
-                            "clock is MXU GEMM (83%% at N=2048)")
-    ap.add_argument("--overlap-blocks", type=int, default=4,
-                    help="chunked-gather blocks for the ringtp overlap row")
     args = ap.parse_args(argv)
-
-    if args.mode == "comm":
-        mode_comm(args)
-        return
 
     if args.virtual_devices:
         os.environ["XLA_FLAGS"] = (
@@ -256,24 +59,23 @@ def main(argv=None):
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("PEBA1_CACHE", "/root/jax_cache"))
     import jax.numpy as jnp
     import numpy as np
 
-    from peba1_tpu import circuits as cc
-    from peba1_tpu import gates, keys
-    from peba1_tpu.backends import CipherBackend
-    from peba1_tpu.params import PRESETS
-    from peba1_tpu.parallel import mesh as pmesh
-    from peba1_tpu.parallel import shard as pshard
-    from peba1_tpu.utils.artifacts import atomic_json
-    from peba1_tpu.utils.bits import int_to_bits
+    from peba1 import circuits as cc
+    from peba1 import gates, keys
+    from peba1.backends import CipherBackend
+    from peba1.params import PRESETS
+    from peba1.parallel import mesh as pmesh
+    from peba1.parallel import shard as pshard
+    from peba1.utils.artifacts import atomic_json
+    from peba1.utils.bits import int_to_bits
+    from peba1.utils.cache import enable_compile_cache
 
+    enable_compile_cache()
     p = PRESETS[args.params]
-    sk, ck = jax.jit(keys.keygen, static_argnames=("params",))(
-        jax.random.PRNGKey(0), params=p)
-    np.asarray(ck.ks_table_limbs[0, :4])
+    sk, ck = jax.block_until_ready(jax.jit(keys.keygen, static_argnames=("params",))(
+        jax.random.PRNGKey(0), params=p))
 
     sizes = [int(s) for s in args.sizes.split(",")]
     devices = jax.devices()
@@ -283,11 +85,11 @@ def main(argv=None):
     def run_bootstrap(m, n, seed):
         batch = args.per_device_batch * n
         bits = jnp.asarray(rng.integers(0, 2, batch))
-        ct = gates.encrypt_bits(jax.random.PRNGKey(seed), sk, bits)
-        np.asarray(ct.b[:4])
+        ct = jax.block_until_ready(
+            gates.encrypt_bits(jax.random.PRNGKey(seed), sk, bits))
         t0 = time.time()
-        out = pshard.sharded_bootstrap(m, ck, ct, jnp.int32(gates.MU_1_8))
-        np.asarray(out.b[:8])
+        out = jax.block_until_ready(
+            pshard.sharded_bootstrap(m, ck, ct, jnp.int32(gates.MU_1_8)))
         dt = time.time() - t0
         got = np.asarray(gates.decrypt_bits(out, sk))
         assert (got == np.asarray(bits)).all(), f"wrong bits at n={n}"
@@ -307,13 +109,13 @@ def main(argv=None):
         p_ct = gates.encrypt_bits(k2, sk, int_to_bits(probe, args.bitsize))
         be = CipherBackend(ck)
         bound = cc.const_word(be, 2 * args.nslots, 3 * args.bitsize)
-        np.asarray(t_ct.b[..., :1])
+        jax.block_until_ready((t_ct, p_ct, bound))
         t0 = time.time()
-        out = pshard.sharded_identify(m, ck, p_ct, t_ct, bound, args.bitsize)
-        np.asarray(out.b[..., :1])
+        out = jax.block_until_ready(
+            pshard.sharded_identify(m, ck, p_ct, t_ct, bound, args.bitsize))
         dt = time.time() - t0
         d = ((tmpl - probe) ** 2).sum(1)
-        from peba1_tpu.utils.bits import bits_to_int
+        from peba1.utils.bits import bits_to_int
         got = bits_to_int(np.asarray(gates.decrypt_bits(out, sk)))
         want = (d > 2 * args.nslots).astype(int)
         assert (got == want).all(), f"wrong verdicts at n={n}"

@@ -1,4 +1,4 @@
-"""Self-contained lattice security estimate for the peba1_tpu parameter sets.
+"""Self-contained lattice security estimate for the peba1 parameter sets.
 
 Implements the standard core-SVP methodology (the "2016 estimate" of
 Alkim-Ducas-Poppelmann-Schwabe, as used by NewHope/Kyber and by the

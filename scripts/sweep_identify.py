@@ -1,10 +1,10 @@
-"""Operational-scale 1:N identification sweep (BASELINE config 3) on-chip.
+"""Operational-scale 1:N identification sweep (BASELINE config 3).
 
 Drives sweep.IdentifySweep -- the checkpoint/resume engine -- at full
 protocol width: one encrypted probe against N enrolled templates, chunked
 into batched Server.identify launches, every chunk's encrypted decision
 words checkpointed to disk (atomic writes, content-fingerprinted).  Re-run
-the same command after an interrupt (Ctrl-C, relay stall, preemption) and it
+the same command after an interrupt (Ctrl-C, stall, preemption) and it
 resumes at the first missing chunk; the artifact records how many chunks
 were computed vs resumed so the resume path is *demonstrated*, not assumed.
 
@@ -14,7 +14,7 @@ any point leaves a valid partial record; on completion the chunks are
 collected, decrypted, and verified against the plaintext distances.
 
   python scripts/sweep_identify.py --n-templates 1024 --chunk 64 \
-      --dir runs/sweep_r04 --out SWEEP_r04.json
+      --dir runs/sweep --out runs/sweep.json
 
 FINALIZE mode (--finalize): computes NOTHING on any device.  Rebuilds the
 client's secret key + plaintext expectations from --seed (keys.secret_keygen
@@ -28,13 +28,11 @@ for chunks written before that field existed, pass the partial artifacts of
 the runs that computed them via --merge-rates.
 
   python scripts/sweep_identify.py --n-templates 1024 --chunk 32 \
-      --dir runs/sweep_r04 --finalize --merge-rates SWEEP_r04.json \
-      --out SWEEP_r05.json
+      --dir runs/sweep --finalize --merge-rates runs/sweep.json \
+      --out runs/sweep_final.json
 
-Expected cadence at full width on one v5e: ~2.2e5 gate bootstraps per
-template (SURVEY.md section 3.6; the exact count is now measured
-mechanically per run via backends.CountingBackend) at the BENCH_r04 rate ->
-tens of seconds per template, ~4.5 h for 1024 templates.
+Each template costs ~2.2e5 gate bootstraps at full width (SURVEY.md section
+3.6; the exact count is measured per run via backends.CountingBackend).
 """
 
 import argparse
@@ -46,16 +44,16 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("PEBA1_CACHE", "/root/jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 import numpy as np
 
-from peba1_tpu import keys, sweep
-from peba1_tpu.params import PRESETS, ProtocolParams
-from peba1_tpu.protocol import ClientDevice, Server
-from peba1_tpu.utils.artifacts import atomic_json
-from peba1_tpu.utils.logging import stderr_log
+from peba1 import keys, sweep
+from peba1.params import PRESETS, ProtocolParams
+from peba1.protocol import ClientDevice, Server
+from peba1.utils.artifacts import atomic_json
+from peba1.utils.cache import enable_compile_cache
+from peba1.utils.logging import stderr_log
+
+enable_compile_cache()
 
 
 def make_inputs(args, proto):
@@ -81,9 +79,9 @@ def count_bootstraps_per_template(proto):
     """Exact per-template gate-bootstrap count of Server.identify's circuit
     (function_f at this geometry), measured by running it once on plaintext
     with the counting backend -- no hand-carried SURVEY constant."""
-    from peba1_tpu import circuits as cc
-    from peba1_tpu.backends import CountingBackend
-    from peba1_tpu.utils.bits import int_to_bits
+    from peba1 import circuits as cc
+    from peba1.backends import CountingBackend
+    from peba1.utils.bits import int_to_bits
 
     be = CountingBackend()
     t = int_to_bits(np.full((1, proto.nslots), 2), proto.bitsize)
@@ -114,14 +112,14 @@ def steady_rates(chunk_seconds, chunk_templates, boots_per_template):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--params", default="peba1_128_t2_gen",
+    ap.add_argument("--params", default="peba1_128_t2",
                     choices=sorted(PRESETS))
     ap.add_argument("--n-templates", type=int, default=1024)
     ap.add_argument("--chunk", type=int, default=64)
     ap.add_argument("--nslots", type=int, default=128)
     ap.add_argument("--bitsize", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--dir", default="runs/sweep_r04")
+    ap.add_argument("--dir", default="runs/sweep")
     ap.add_argument("--out", default=None)
     ap.add_argument("--max-chunks", type=int, default=0,
                     help="stop after computing this many NEW chunks this "
@@ -139,8 +137,8 @@ def main(argv=None):
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
     elif args.finalize:
-        # Finalize is host-side verification; never dial the TPU (a sweep
-        # may be running on it).
+        # Finalize is host-side verification; stay off the accelerator (a
+        # sweep may be running on it).
         jax.config.update("jax_platforms", "cpu")
 
     log = stderr_log(bench="sweep_identify")
@@ -280,13 +278,13 @@ def main(argv=None):
 def finalize(args, proto, client, templates, want, k2, k3, log):
     """Verify + decrypt the on-disk state of a (possibly partial) sweep and
     emit the full evidence artifact.  Touches no accelerator."""
-    from peba1_tpu.io import serial
+    from peba1.io import serial
 
     # Recompute the sweep fingerprint exactly as the compute path does: the
     # probe/bound ciphertexts are deterministic from --seed + secret key.
     # CAVEAT (measured): encryption noise (torus.gaussian_torus32) rounds
     # float->int32 differently across backends by +-1 ULP on some draws, so
-    # a fingerprint computed on CPU only byte-matches a TPU-written manifest
+    # a fingerprint computed on CPU only byte-matches a GPU-written manifest
     # if the draws happen to agree.  Exact match is recorded when it holds;
     # otherwise the binding proof is the decryption pass below -- every
     # checkpointed decision decrypting correctly under the seed-derived

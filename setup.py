@@ -3,9 +3,9 @@
 from setuptools import Extension, setup
 
 setup(
-    name="peba1_tpu",
+    name="peba1",
     version="0.1.0",
-    packages=["peba1_tpu"],
+    packages=["peba1"],
     ext_modules=[
         Extension(
             "peba1_native",

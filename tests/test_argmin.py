@@ -10,11 +10,11 @@ import jax
 import numpy as np
 import pytest
 
-from peba1_tpu import circuits as cc
-from peba1_tpu.backends import ClearBackend
-from peba1_tpu.params import ProtocolParams
-from peba1_tpu.protocol import ClientDevice, Server
-from peba1_tpu.utils.bits import bits_to_int
+from peba1 import circuits as cc
+from peba1.backends import ClearBackend
+from peba1.params import ProtocolParams
+from peba1.protocol import ClientDevice, Server
+from peba1.utils.bits import bits_to_int
 
 PROTO = ProtocolParams(nslots=2, bitsize=3, max_bitsize=9, mul_width=8, bound_match=4)
 

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from peba1_tpu import circuits as cc
-from peba1_tpu import gates
-from peba1_tpu.backends import CipherBackend, ClearBackend
+from peba1 import circuits as cc
+from peba1 import gates
+from peba1.backends import CipherBackend, ClearBackend
 
 
 def to_bits(v, nbits):
@@ -207,8 +207,8 @@ def test_shape_validation_real_errors():
     they are real exceptions."""
     import pytest as _pytest
 
-    from peba1_tpu import circuits as _cc
-    from peba1_tpu.backends import ClearBackend as _CB
+    from peba1 import circuits as _cc
+    from peba1.backends import ClearBackend as _CB
 
     be = _CB()
     a = _cc.const_word(be, np.asarray([1, 2]), 3, (2,))      # 2 slots x 3 bits
@@ -231,10 +231,10 @@ def test_counting_backend_matches_cipher_execution(toy_keys):
     import jax
     import jax.numpy as jnp
 
-    from peba1_tpu import circuits as cc
-    from peba1_tpu import gates
-    from peba1_tpu.backends import CipherBackend, CountingBackend
-    from peba1_tpu.utils.bits import int_to_bits
+    from peba1 import circuits as cc
+    from peba1 import gates
+    from peba1.backends import CipherBackend, CountingBackend
+    from peba1.utils.bits import int_to_bits
 
     sk, ck = toy_keys
     nslots, bits = 4, 3

@@ -6,7 +6,7 @@ the bitwise algorithms against native ops over random inputs.
 
 import numpy as np
 
-from peba1_tpu import clear
+from peba1 import clear
 
 
 def test_add_nbit_64():

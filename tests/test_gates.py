@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from peba1_tpu import gates, keys, lwe
-from peba1_tpu.ops import bootstrap as bs
-from peba1_tpu.params import TOY
+from peba1 import gates, keys, lwe
+from peba1.ops import bootstrap as bs
+from peba1.params import TOY
 
 
 @pytest.fixture(scope="module")

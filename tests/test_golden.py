@@ -7,20 +7,20 @@ Pins three things against the frozen tests/data/golden_corpus.json:
      ClearBackend -- the exact circuit the cipher backend executes, at the
      exact reference widths, decision bits AND blinded nonces.
 
-The cipher-side evaluation of the same corpus runs on the TPU via
-scripts/diag.py golden (committed artifact GOLDEN_r*.json) -- too slow for
-CPU CI at full width, but the backend-equivalence of the gate schedule is
-pinned at small width by tests/test_protocol.py.
+The cipher-side evaluation of the same corpus runs on the accelerator via
+scripts/diag.py golden -- too slow for CPU CI at full width, but the
+backend-equivalence of the gate schedule is pinned at small width by
+tests/test_protocol.py.
 """
 
 import os
 
 import numpy as np
 
-from peba1_tpu import clear
-from peba1_tpu import conformance as cf
-from peba1_tpu.backends import ClearBackend
-from peba1_tpu.utils.bits import bits_to_int
+from peba1 import clear
+from peba1 import conformance as cf
+from peba1.backends import ClearBackend
+from peba1.utils.bits import bits_to_int
 
 CORPUS = os.path.join(os.path.dirname(__file__), "data", "golden_corpus.json")
 

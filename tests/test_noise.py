@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from peba1_tpu import gates, keys, lwe
-from peba1_tpu.ops import bootstrap as bs
-from peba1_tpu.params import TOY_NOISY
+from peba1 import gates, keys, lwe
+from peba1.ops import bootstrap as bs
+from peba1.params import TOY_NOISY
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +51,7 @@ def test_bootstrap_output_noise_within_budget(noisy_keys):
 
 
 def test_committed_noise_campaign_artifacts():
-    """Pin the on-chip chained-gate error campaign (scripts/diag.py campaign).
+    """Pin the on-device chained-gate error campaigns (scripts/diag.py campaign).
 
     The throughput-tuned gadgets deviate from TFHE defaults (l=2/Bg=2^8,
     3-limb body, and the t2 set's N=512 modswitch); their viability for the
@@ -66,10 +66,10 @@ def test_committed_noise_campaign_artifacts():
 
     root = os.path.join(os.path.dirname(__file__), "..")
     paths = sorted(glob.glob(os.path.join(root, "NOISE_*.json")))
-    # Hard requirement (VERDICT r2): the campaign evidence must exist -- a
-    # pin test that skips when the artifact is missing pins nothing.
+    # Hard requirement: the campaign evidence must exist -- a pin test that
+    # skips when the record is missing pins nothing.
     assert paths, ("no committed NOISE_*.json campaign artifact; run "
-                   "scripts/diag.py campaign --out NOISE_<round>_<params>.json")
+                   "scripts/diag.py campaign --out NOISE_<params>.json")
     for path in paths:
         with open(path) as f:
             rec = json.load(f)

@@ -1,10 +1,9 @@
-"""Exact-integer negacyclic NTT prototype vs the naive oracle (SURVEY E8;
-the measurement side of docs/NTT_DECISION.md)."""
+"""Exact-integer negacyclic NTT prototype vs the naive oracle (SURVEY E8)."""
 
 import numpy as np
 import pytest
 
-from peba1_tpu.ops import ntt, poly
+from peba1.ops import ntt, poly
 
 
 @pytest.mark.parametrize("N", [128, 512, 2048])

@@ -13,11 +13,11 @@ import jax
 import numpy as np
 import pytest
 
-from peba1_tpu import sweep as sweep_mod
-from peba1_tpu.params import ProtocolParams
-from peba1_tpu.protocol import ClientDevice, Server
-from peba1_tpu.sweep import IdentifySweep
-from peba1_tpu.utils.logging import EventLog
+from peba1 import sweep as sweep_mod
+from peba1.params import ProtocolParams
+from peba1.protocol import ClientDevice, Server
+from peba1.sweep import IdentifySweep
+from peba1.utils.logging import EventLog
 
 PROTO = ProtocolParams(nslots=2, bitsize=3, max_bitsize=9, mul_width=8, bound_match=4)
 N_TEMPLATES = 5

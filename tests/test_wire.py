@@ -4,8 +4,8 @@ import jax
 import numpy as np
 import pytest
 
-from peba1_tpu import gates
-from peba1_tpu.io import wire
+from peba1 import gates
+from peba1.io import wire
 
 
 def test_crc32c_vector():
